@@ -1,41 +1,33 @@
-"""duckdb_parquet_parser_tpu — a TPU-native vectorized Parquet scan engine.
+"""Former name of the `duckdb_parquet_parser` package, kept so that existing
+imports keep working.  Importing a module under this name returns the very
+module object of the new name, so the two names never hold two copies."""
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-`sputnik89/duckdb-parquet-parser`: host-side (C++17) Thrift footer/metadata
-parsing, page indexing and structural pre-scan; device-side branch-free page
-decode (PLAIN / RLE-dictionary / definition-level null materialization), regex
-(LIKE / NOT LIKE) page-pruning scans, and chunked inverted-index construction
-— scaling over multi-host TPU meshes via `jax.sharding` + `shard_map`.
-"""
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-from .version import __version__
+import duckdb_parquet_parser as _pkg
 
-__all__ = [
-    "__version__",
-    # lazily-resolved public surface (heavy deps load on first touch)
-    "ParquetReader", "ParquetWriter", "ColumnSpec", "DecodedColumn",
-    "ScanEngine", "ResidentColumn", "cold_scan",
-    "EngineConfig", "get_config", "set_config",
-]
-
-_LAZY = {
-    "ParquetReader": ("duckdb_parquet_parser_tpu.host.reader", "ParquetReader"),
-    "DecodedColumn": ("duckdb_parquet_parser_tpu.host.reader", "DecodedColumn"),
-    "ParquetWriter": ("duckdb_parquet_parser_tpu.host.writer", "ParquetWriter"),
-    "ColumnSpec": ("duckdb_parquet_parser_tpu.host.writer", "ColumnSpec"),
-    "ScanEngine": ("duckdb_parquet_parser_tpu.models.scan", "ScanEngine"),
-    "ResidentColumn": ("duckdb_parquet_parser_tpu.models.scan", "ResidentColumn"),
-    "cold_scan": ("duckdb_parquet_parser_tpu.models.scan", "cold_scan"),
-    "EngineConfig": ("duckdb_parquet_parser_tpu.utils.config", "EngineConfig"),
-    "get_config": ("duckdb_parquet_parser_tpu.utils.config", "get_config"),
-    "set_config": ("duckdb_parquet_parser_tpu.utils.config", "set_config"),
-}
+_OLD, _NEW = __name__, _pkg.__name__
 
 
-def __getattr__(name):
-    if name in _LAZY:
-        import importlib
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
 
-        module, attr = _LAZY[name]
-        return getattr(importlib.import_module(module), attr)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system has just set the alias spec on the module; give
+        # it back its own, which its relative imports resolve against
+        module.__spec__ = module.__spec__.loader_state
+
+
+sys.meta_path.insert(0, _Alias())
+sys.modules[_OLD] = _pkg

@@ -4,12 +4,12 @@ config, metrics."""
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.host.schema import PageType
-from duckdb_parquet_parser_tpu.ops.index import build_index_for_column
-from duckdb_parquet_parser_tpu.parallel.elastic import FleetState
-from duckdb_parquet_parser_tpu.utils import checkpoints, metrics
-from duckdb_parquet_parser_tpu.utils.config import EngineConfig
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.host.schema import PageType
+from duckdb_parquet_parser.ops.index import build_index_for_column
+from duckdb_parquet_parser.parallel.elastic import FleetState
+from duckdb_parquet_parser.utils import checkpoints, metrics
+from duckdb_parquet_parser.utils.config import EngineConfig
 from tests import fixtures
 
 
@@ -98,3 +98,29 @@ def test_metrics_stages(capsys):
     assert rec["stage"] == "decode" and rec["rows"] == 1000 and rec["seconds"] >= 0
     assert metrics.skew_factor([10, 10, 10, 10]) == 1.0
     assert metrics.skew_factor([40, 0, 0, 0]) == 4.0
+
+
+def test_former_package_name_aliases_modules():
+    """The package's former name (a sibling alias package) still imports,
+    and every submodule under it is the module object of the new name."""
+    import importlib
+    import pkgutil
+    from pathlib import Path
+
+    import duckdb_parquet_parser
+    import duckdb_parquet_parser.ops.scan as new_scan
+
+    root = Path(duckdb_parquet_parser.__file__).parents[1]
+    aliases = [m.name for m in pkgutil.iter_modules([str(root)])
+               if m.name.startswith("duckdb_parquet_parser_")]
+    assert len(aliases) == 1
+    old = importlib.import_module(aliases[0])
+    assert old is duckdb_parquet_parser
+    assert importlib.import_module(aliases[0] + ".ops.scan") is new_scan
+    from_old = importlib.import_module(aliases[0] + ".models.scan")
+    assert from_old.ScanEngine is importlib.import_module(
+        "duckdb_parquet_parser.models.scan").ScanEngine
+    # the modules keep their own spec, so their relative imports still work
+    for mod in (new_scan, from_old):
+        assert mod.__spec__.name == mod.__name__
+        assert mod.__spec__.parent == mod.__package__

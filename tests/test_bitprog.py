@@ -12,13 +12,13 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.ops.bitprog import (
+from duckdb_parquet_parser.ops.bitprog import (
     BitprogUnsupported,
     compile_bitprog,
     make_bitprog_transition,
 )
-from duckdb_parquet_parser_tpu.ops.regex import compile_pattern
-from duckdb_parquet_parser_tpu.ops.strings import match_payload_stream
+from duckdb_parquet_parser.ops.regex import compile_pattern
+from duckdb_parquet_parser.ops.strings import match_payload_stream
 
 SUPPORTED = [
     "abc", "a", "a.*z", "a.*b.*c", "q[ax]+x", "q[a-f]{2,4}z", "ab?c",
@@ -134,7 +134,7 @@ def test_jnp_parity(pages):
 
 def test_chain_equivalence(pages):
     """A pure substring chain must behave exactly like the bitap path."""
-    from duckdb_parquet_parser_tpu.ops.regex import substring_chain
+    from duckdb_parquet_parser.ops.regex import substring_chain
 
     pm, pl, nn = pages
     pattern = "ab.*q"
@@ -333,9 +333,9 @@ def test_pair_step_parity():
     engages."""
     import jax.numpy as jnp
 
-    from duckdb_parquet_parser_tpu.ops import strings as S
-    from duckdb_parquet_parser_tpu.ops.bitprog import pair_supported
-    from duckdb_parquet_parser_tpu.utils.config import (
+    from duckdb_parquet_parser.ops import strings as S
+    from duckdb_parquet_parser.ops.bitprog import pair_supported
+    from duckdb_parquet_parser.utils.config import (
         EngineConfig,
         set_config,
     )
@@ -384,8 +384,8 @@ def test_pair_step_fuzz():
     """Random compositions: pair vs per-byte vs the numpy DFA oracle."""
     import jax.numpy as jnp
 
-    from duckdb_parquet_parser_tpu.ops.bitprog import pair_supported
-    from duckdb_parquet_parser_tpu.utils.config import (
+    from duckdb_parquet_parser.ops.bitprog import pair_supported
+    from duckdb_parquet_parser.utils.config import (
         EngineConfig,
         set_config,
     )
@@ -468,7 +468,7 @@ def test_inner_anchors_and_empty_matchers():
 
 def test_never_match_dfa():
     """compile_pattern on unsatisfiable inner-anchor patterns yields a
-    never-accepting DFA (so dictionary pages and the MXU path agree with
+    never-accepting DFA (so dictionary pages and the one-hot DFA path agree with
     the bitprog never-machines) instead of falling back to the host."""
     for pattern in ("a^b", "a$b", "x{2}^q"):
         dfa = compile_pattern(pattern)
@@ -519,7 +519,7 @@ def test_arith_fill_safety_and_parity(pages):
     """The arithmetic carry-fill smear (constant 5 ops) must only engage when
     no optional run crosses a packed-component boundary, and must stay
     bit-identical to the doubling plan wherever it engages."""
-    from duckdb_parquet_parser_tpu.ops.bitprog import (
+    from duckdb_parquet_parser.ops.bitprog import (
         _arith_fill_ok,
         _compile_registers,
     )
@@ -563,7 +563,7 @@ def test_lead_run_counter_semantics():
     that themselves extend the class streak."""
     import re as _re
 
-    from duckdb_parquet_parser_tpu.ops.bitprog import _compile_registers
+    from duckdb_parquet_parser.ops.bitprog import _compile_registers
 
     def pages_from(values_per_page):
         payloads, plens, nns = [], [], []
@@ -732,12 +732,8 @@ def test_interior_run_re_parity():
 
 def test_interior_run_stream_parity():
     """Counter machines through match_payload_stream (value boundaries,
-    truncation, empty values) and the Pallas interpret kernel."""
-    import jax.numpy as jnp
-
-    from duckdb_parquet_parser_tpu.ops.pallas.stream_matcher import (
-        match_stream_pallas,
-    )
+    truncation, empty values) and the streaming kernel in interpret mode."""
+    from tests.test_pallas_stream import _kernel
 
     rng = np.random.default_rng(23)
     # long values so >31-byte runs actually occur
@@ -752,11 +748,6 @@ def test_interior_run_stream_parity():
                                           prog=prog)
         np.testing.assert_array_equal(h_bp, h_dfa, err_msg=pattern)
         np.testing.assert_array_equal(s_bp, s_dfa, err_msg=pattern)
-        h_pl, s_pl = match_stream_pallas(jnp.asarray(pm.T), pl_, nn,
-                                         pattern, max_steps=pm.shape[1],
-                                         lane_tile=128, inner=8,
-                                         interpret=True)
-        np.testing.assert_array_equal(np.asarray(h_pl), h_dfa,
-                                      err_msg=pattern)
-        np.testing.assert_array_equal(np.asarray(s_pl), s_dfa,
-                                      err_msg=pattern)
+        (h_pl,), s_pl = _kernel(pm, pl_, nn, [(None, prog)])
+        np.testing.assert_array_equal(h_pl, h_dfa, err_msg=pattern)
+        np.testing.assert_array_equal(s_pl, s_dfa, err_msg=pattern)

@@ -18,16 +18,16 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host import bindings
-from duckdb_parquet_parser_tpu.host.bindings import (
+from duckdb_parquet_parser.host import bindings
+from duckdb_parquet_parser.host.bindings import (
     NativeError,
     codec_compress,
     codec_decompress,
     codec_supported,
 )
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.host.schema import CompressionCodec, ParquetType
-from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.host.schema import CompressionCodec, ParquetType
+from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
 pa = pytest.importorskip("pyarrow")
 
@@ -174,7 +174,7 @@ def test_twin_decode_identical(codec_twins):
 
 
 def test_twin_scan_identical(codec_twins):
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     base = ScanEngine(codec_twins["uncompressed"]).scan("s", "san.*o")
     for codec, path in codec_twins.items():
@@ -245,7 +245,7 @@ def test_scans_pyarrow_compressed_file(tmp_path, cid, _w, _pa, pq_name):
     _require(cid)
     import pyarrow.parquet as pq
 
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     rng = np.random.default_rng(int(cid) + 7)
     n = 4000

@@ -10,8 +10,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.models.scan import ScanEngine
-from duckdb_parquet_parser_tpu.ops.scan import scan_batch
+from duckdb_parquet_parser.models.scan import ScanEngine
+from duckdb_parquet_parser.ops.scan import scan_batch
 
 from .fixtures import mixed_file, strings_file
 
@@ -114,8 +114,8 @@ def test_cold_scan_neg_indicator_dense_candidates(tmp_path):
     needle candidate (regression: the per-value confirm walk read the
     non-filter needles' masks, which the rarest-needle screen no longer
     fills chunk-wide — crashed when pages weren't screened out first)."""
-    from duckdb_parquet_parser_tpu.host.writer import ParquetWriter, ColumnSpec
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ParquetWriter, ColumnSpec
+    from duckdb_parquet_parser.host.schema import ParquetType
 
     rng = np.random.default_rng(21)
     path = str(tmp_path / "dense.parquet")
@@ -156,7 +156,7 @@ def test_scan_streaming_parity(dict_file, plain_file, pattern, neg):
 
 
 def test_length_buckets_cover_and_bound():
-    from duckdb_parquet_parser_tpu.ops.scan import length_buckets
+    from duckdb_parquet_parser.ops.scan import length_buckets
 
     rng = np.random.default_rng(3)
     plen = rng.integers(100, 1400, 5000).astype(np.int32)
@@ -174,7 +174,7 @@ def test_length_buckets_cover_and_bound():
 def test_resident_bucketed_scan_parity(dict_file, plain_file, monkeypatch):
     """Two-bucket resident serving returns the same counts as the golden
     matcher (forced split via a tiny min_bucket)."""
-    import duckdb_parquet_parser_tpu.ops.scan as S
+    import duckdb_parquet_parser.ops.scan as S
 
     orig = S.length_buckets
     monkeypatch.setattr(
@@ -210,7 +210,7 @@ def test_dict_all_miss_short_circuit(tmp_path):
     but ONLY when (1 << idx_bw) <= dict_n proves OOB indices impossible."""
     import os
 
-    from duckdb_parquet_parser_tpu.host.reader import ParquetReader
+    from duckdb_parquet_parser.host.reader import ParquetReader
 
     # dict_n == 8 (power of two): bw == 3 and 2^3 <= 8 -> skip engages
     p8 = _dict_file(tmp_path, 8, "d8.parquet")
@@ -242,7 +242,7 @@ def test_dict_all_miss_short_circuit(tmp_path):
 def test_dict_all_miss_negation_never_skips(tmp_path):
     """Negated patterns match THROUGH non-accepted entries — the all-miss
     short-circuit must never engage."""
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     p8 = _dict_file(tmp_path, 8, "dneg.parquet")
     res = ScanEngine(p8).cold_scan("s", "zz_nothing", negate=True,
@@ -256,9 +256,9 @@ def test_dict_oob_page_never_skips(tmp_path):
     an index >= dict_n (expressible because 2^bw > dict_n) and check the
     cold scan still walks it and drops the OOB values from the
     participating count, exactly like the prescan path."""
-    from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.reader import ParquetReader
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     rng = np.random.default_rng(7)
     path = str(tmp_path / "oob.parquet")

@@ -8,9 +8,9 @@ import os
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.models.scan import ScanEngine
-from duckdb_parquet_parser_tpu.ops.regex import UnsupportedPattern, compile_pattern
-from duckdb_parquet_parser_tpu.utils.config import EngineConfig, set_config
+from duckdb_parquet_parser.models.scan import ScanEngine
+from duckdb_parquet_parser.ops.regex import UnsupportedPattern, compile_pattern
+from duckdb_parquet_parser.utils.config import EngineConfig, set_config
 
 from .fixtures import strings_file
 
@@ -43,7 +43,7 @@ def test_scan_engine_default_is_config(path, monkeypatch):
     eng = ScanEngine(path)
 
     # if the engine consulted the config, the device path is never touched
-    import duckdb_parquet_parser_tpu.ops.scan as S
+    import duckdb_parquet_parser.ops.scan as S
 
     def boom(*a, **k):  # pragma: no cover - would mean config was ignored
         raise AssertionError("device path used despite scan_engine=numpy")
@@ -56,11 +56,11 @@ def test_scan_engine_default_is_config(path, monkeypatch):
 def test_exchange_capacity_slack_consumed(path):
     if len(__import__("jax").devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-    from duckdb_parquet_parser_tpu.parallel.index_build import (
+    from duckdb_parquet_parser.host.reader import ParquetReader
+    from duckdb_parquet_parser.parallel.index_build import (
         distributed_index_build,
     )
-    from duckdb_parquet_parser_tpu.parallel.mesh import make_mesh
+    from duckdb_parquet_parser.parallel.mesh import make_mesh
 
     mesh = make_mesh(8)
     reader = ParquetReader(path)
@@ -92,3 +92,27 @@ def test_profile_dir_produces_trace(path, tmp_path):
         os.path.join(r, f) for r, _d, fs in os.walk(trace_dir) for f in fs
     ]
     assert files, "no profiler trace written under profile_dir"
+
+
+def test_compile_cache_dir(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins and no directory is set in code;
+    without it the cache sits at one fixed path inside the checkout."""
+    import jax
+
+    from duckdb_parquet_parser.utils import jax_setup
+
+    updates = {}
+    monkeypatch.setattr(jax.config, "update",
+                        lambda k, v: updates.__setitem__(k, v))
+
+    monkeypatch.setattr(jax_setup, "_done", False)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere/cache")
+    jax_setup.enable_compile_cache()
+    assert "jax_compilation_cache_dir" not in updates
+
+    monkeypatch.setattr(jax_setup, "_done", False)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    jax_setup.enable_compile_cache()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = os.path.join(repo, ".jax_cache")
+    assert updates["jax_compilation_cache_dir"] == want

@@ -8,10 +8,10 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.bindings import NativeError
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.host.schema import ParquetType
-from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+from duckdb_parquet_parser.host.bindings import NativeError
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.host.schema import ParquetType
+from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
 
 @pytest.fixture(scope="module")
@@ -36,8 +36,8 @@ def _exercise(path):
     r.read_column("i")   # lean PS_COL_ONLY path (round 3)
     r.read_column("s")
     list(r.page_stats(0) or [])
-    from duckdb_parquet_parser_tpu.models.scan import cold_scan
-    from duckdb_parquet_parser_tpu.ops.index import build_index_for_column
+    from duckdb_parquet_parser.models.scan import cold_scan
+    from duckdb_parquet_parser.ops.index import build_index_for_column
 
     cold_scan(r, "s", "w1")
     build_index_for_column(r, "s")  # PS_INDEX emission + native plan sweep
@@ -103,7 +103,7 @@ def test_delta_byte_flips_never_crash(tmp_path, delta_file, seed):
     """Byte flips on a DELTA_BINARY_PACKED file: the PS_DELTA_RAW structure
     parse (round 5) and the host delta decoder must decode or raise
     cleanly — never crash (strict-bounds cursors over untrusted input)."""
-    from duckdb_parquet_parser_tpu.ops.delta import read_delta_column
+    from duckdb_parquet_parser.ops.delta import read_delta_column
 
     rng = np.random.default_rng(7000 + seed)
     data = bytearray(delta_file)

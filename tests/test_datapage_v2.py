@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
+from duckdb_parquet_parser.host.reader import ParquetReader
 
 pa = pytest.importorskip("pyarrow")
 
@@ -77,7 +77,7 @@ def test_v2_page_index_has_pages(tmp_path):
 def test_v2_scan_matches_re(tmp_path):
     import re
 
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     path, _table, svals = _v2_file(tmp_path, "snappy", True, "v2_scan.parquet")
     res = ScanEngine(path).scan("s", "city-1[0-9]$")

@@ -5,9 +5,9 @@ reference decoder's semantics."""
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.ops import decode as D
-from duckdb_parquet_parser_tpu.ops.expand import expand_hybrid
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.ops import decode as D
+from duckdb_parquet_parser.ops.expand import expand_hybrid
 from tests import fixtures
 
 
@@ -242,7 +242,7 @@ def test_expand_select_matches_gather(mixed_path, col):
     r = ParquetReader(mixed_path)
     b = r.prescan(col)
     kw = dict(max_def=b.max_def, out_len=b.vmax, nn_len=b.nn_cap, mode=b.mode)
-    from duckdb_parquet_parser_tpu.ops import expand as E
+    from duckdb_parquet_parser.ops import expand as E
 
     planes_np, nn_np = D.decode_fixed(
         np, b.arrays, b.plain_planes, b.dict_planes, b.bool_bits, **kw
@@ -272,8 +272,8 @@ def test_heavy_nulls_gather_fallback(tmp_path, rng):
     fall back to gathers and still match numpy."""
     import jax.numpy as jnp
 
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     path = str(tmp_path / "heavy.parquet")
     n = 2000
@@ -317,8 +317,8 @@ def _null_patterns(rng, n):
 def test_masked_cells_decode_to_zero(tmp_path, rng, pat_i):
     import jax.numpy as jnp
 
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     n = 1500
     valid = list(_null_patterns(rng, n))[pat_i]
@@ -366,8 +366,8 @@ def test_local_table_dict_lookup_parity(tmp_path):
     global-table lookup on a multi-row-group dict file whose chunk
     dictionaries DIFFER in entry order (page_dict_base offsets exercise
     the base+idx mapping)."""
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     rng = np.random.default_rng(41)
     path = str(tmp_path / "multi_rg_dict.parquet")
@@ -407,3 +407,36 @@ def test_local_table_dict_lookup_parity(tmp_path):
         assert np.array_equal(pl_, pn)
     # end-to-end read parity too
     assert r.read_column("k").to_pylist() == expect
+
+
+def test_dict_4096_decode_parity(tmp_path):
+    """A 4,096-entry dictionary (above the select limit, so the device
+    lookup is a gather) decodes identically on device and in numpy."""
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.ops.dict_lookup import SELECT_DICT_MAX
+
+    rng = np.random.default_rng(4096)
+    path = str(tmp_path / "dict4096.parquet")
+    w = ParquetWriter(path, [ColumnSpec("k", ParquetType.INT64,
+                                        optional=True)])
+    n = 6 * 4096
+    vals = rng.permutation(4096)[rng.integers(0, 4096, n)].astype(np.int64)
+    vals = vals * 1_000_003 - (1 << 40)
+    mask = (rng.random(n) > 0.05).astype(np.uint8)
+    w.write_row_group({"k": (vals, mask)})
+    w.close()
+
+    b = ParquetReader(path).prescan("k")
+    assert b.mode == "dict"
+    assert b.dict_planes[0].shape[0] > SELECT_DICT_MAX
+    kw = dict(max_def=b.max_def, out_len=b.vmax, nn_len=b.nn_cap, mode="dict")
+    planes_np, nn_np = D.decode_fixed(np, b.arrays, [], b.dict_planes, None,
+                                      **kw)
+    planes_j, nn_j = D.decode_fixed_jax(b.arrays, [], b.dict_planes, None,
+                                        dict_planes_pp=b.dict_planes_pp, **kw)
+    assert np.array_equal(np.asarray(nn_j), nn_np)
+    for pj, pn in zip(planes_j, planes_np):
+        assert np.array_equal(np.asarray(pj), pn)
+    got = ParquetReader(path).read_column("k").to_pylist()
+    assert got == [int(v) if m else None for v, m in zip(vals, mask)]

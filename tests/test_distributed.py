@@ -7,22 +7,22 @@ import pytest
 
 import jax
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader, _string_stream
-from duckdb_parquet_parser_tpu.ops.index import build_index
-from duckdb_parquet_parser_tpu.ops.regex import compile_pattern
-from duckdb_parquet_parser_tpu.ops.scan import scan_batch
-from duckdb_parquet_parser_tpu.parallel.mesh import make_mesh
-from duckdb_parquet_parser_tpu.parallel.partition import (
+from duckdb_parquet_parser.host.reader import ParquetReader, _string_stream
+from duckdb_parquet_parser.ops.index import build_index
+from duckdb_parquet_parser.ops.regex import compile_pattern
+from duckdb_parquet_parser.ops.scan import scan_batch
+from duckdb_parquet_parser.parallel.mesh import make_mesh
+from duckdb_parquet_parser.parallel.partition import (
     assign_balanced,
     pad_pages,
     reorder_pages,
     strings_page_major,
 )
-from duckdb_parquet_parser_tpu.parallel.pipeline import (
+from duckdb_parquet_parser.parallel.pipeline import (
     distributed_scan,
     exchange_entries,
 )
-from duckdb_parquet_parser_tpu.parallel.shuffle import (
+from duckdb_parquet_parser.parallel.shuffle import (
     ExchangePlan,
     balanced_chunk_owners,
 )
@@ -44,7 +44,7 @@ def batch_and_path(request, tmp_path_factory):
         d / "f.parquet", rng, n=1800, null_p=0.2,
         n_unique=None if request.param == "plain" else 13,
     )
-    from duckdb_parquet_parser_tpu.host import bindings
+    from duckdb_parquet_parser.host import bindings
 
     r = ParquetReader(path)
     return r, r.prescan(
@@ -114,10 +114,10 @@ def test_ragged_exchange_roundtrip(mesh, batch_and_path):
     """Exact-size ragged exchange: every entry arrives exactly once at its
     owner, source-major contiguous, with zero interior padding (valid rows
     are exactly [0, recv_total[d]))."""
-    from duckdb_parquet_parser_tpu.parallel.pipeline import (
+    from duckdb_parquet_parser.parallel.pipeline import (
         ragged_exchange_entries,
     )
-    from duckdb_parquet_parser_tpu.parallel.shuffle import RaggedExchangePlan
+    from duckdb_parquet_parser.parallel.shuffle import RaggedExchangePlan
 
     reader, batch = batch_and_path
     pos, lens, _offs, _chars = _string_stream(batch)
@@ -156,10 +156,10 @@ def test_ragged_exchange_roundtrip(mesh, batch_and_path):
 def test_index_build_ragged_vs_padded_parity(mesh, batch_and_path):
     """distributed_index_build produces identical received entry sets and
     chunk maps through the ragged and padded exchanges."""
-    from duckdb_parquet_parser_tpu.parallel.index_build import (
+    from duckdb_parquet_parser.parallel.index_build import (
         distributed_index_build,
     )
-    from duckdb_parquet_parser_tpu.utils.config import (
+    from duckdb_parquet_parser.utils.config import (
         EngineConfig,
         set_config,
     )
@@ -210,7 +210,7 @@ def test_reorder_pages_preserves_decode(batch_and_path):
 def test_salted_ownership_and_capacity():
     """Hot chunks (bytes or entry count) split across distinct devices so
     neither device load nor the exchange bucket capacity blows up."""
-    from duckdb_parquet_parser_tpu.parallel.shuffle import (
+    from duckdb_parquet_parser.parallel.shuffle import (
         ExchangePlan,
         salted_chunk_owners,
     )
@@ -235,8 +235,30 @@ def test_salted_ownership_and_capacity():
     assert plan.capacity <= 2.0 * mean_bucket, (plan.capacity, mean_bucket)
 
 
+def test_entry_destinations_match_per_chunk_round_robin():
+    """Entries in stream order (chunks interleaved) go to their chunk's
+    owner; a salted chunk's entries round-robin over its owners by rank."""
+    from duckdb_parquet_parser.parallel.shuffle import salted_chunk_owners
+
+    rng = np.random.default_rng(5)
+    d = 4
+    chunk_bytes = np.concatenate([[50_000, 30_000], rng.integers(100, 900, 40)])
+    chunk_entries = np.concatenate([[900, 40], rng.integers(5, 30, 40)])
+    salted = salted_chunk_owners(chunk_bytes, d, 2.0,
+                                 chunk_entries=chunk_entries)
+    assert any(len(devs) > 1 for devs in salted.owners)
+    chunk_of_entry = rng.permutation(
+        np.repeat(np.arange(len(chunk_bytes)), chunk_entries))
+    want = np.empty(len(chunk_of_entry), np.int64)
+    for c, devs in enumerate(salted.owners):
+        idx = np.nonzero(chunk_of_entry == c)[0]
+        want[idx] = devs[np.arange(len(idx)) % len(devs)]
+    np.testing.assert_array_equal(
+        salted.entry_destinations(chunk_of_entry), want)
+
+
 def test_send_buffer_overflow_raises():
-    from duckdb_parquet_parser_tpu.parallel.shuffle import ExchangePlan
+    from duckdb_parquet_parser.parallel.shuffle import ExchangePlan
 
     dst = np.zeros(10, np.int64)
     src = np.zeros(10, np.int64)
@@ -247,7 +269,7 @@ def test_send_buffer_overflow_raises():
 
 
 def test_assign_balanced_equal_counts_and_load():
-    from duckdb_parquet_parser_tpu.parallel.partition import assign_balanced_equal
+    from duckdb_parquet_parser.parallel.partition import assign_balanced_equal
 
     rng = np.random.default_rng(0)
     w = rng.integers(400, 600, 64).astype(np.int64)
@@ -265,8 +287,8 @@ def test_assign_balanced_equal_counts_and_load():
 def test_sharded_emissions_matches_host_stream(mesh, batch_and_path):
     """The device-side sharded emission decode reproduces the host string
     stream (rows and lengths) exactly."""
-    from duckdb_parquet_parser_tpu.host.reader import _string_stream
-    from duckdb_parquet_parser_tpu.parallel.index_build import sharded_emissions
+    from duckdb_parquet_parser.host.reader import _string_stream
+    from duckdb_parquet_parser.parallel.index_build import sharded_emissions
 
     _reader, batch = batch_and_path
     pos_host, lens_host, _offs, _chars = _string_stream(batch)
@@ -278,7 +300,7 @@ def test_sharded_emissions_matches_host_stream(mesh, batch_and_path):
 def test_distributed_init_from_env(monkeypatch):
     """Multi-host init parses the env contract and passes it to
     jax.distributed.initialize (mocked — no cluster here)."""
-    from duckdb_parquet_parser_tpu.parallel import mesh as M
+    from duckdb_parquet_parser.parallel import mesh as M
 
     calls = {}
 
@@ -288,21 +310,10 @@ def test_distributed_init_from_env(monkeypatch):
                      pid=process_id)
 
     monkeypatch.setattr(jax.distributed, "initialize", fake_init)
-    pod_vars = ("TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS",
-                "CLOUD_TPU_TASK_ID")
-    # no coordinator and no pod env -> no-op
+    # no coordinator -> no-op
     monkeypatch.delenv("DPQ_COORDINATOR", raising=False)
-    for v in pod_vars:
-        monkeypatch.delenv(v, raising=False)
     assert M.distributed_init_from_env() is False
     assert not calls
-
-    # Cloud TPU pod env -> argless auto-detect init
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "w0,w1")
-    assert M.distributed_init_from_env() is True
-    assert calls == {"addr": None, "n": None, "pid": None}
-    calls.clear()
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES")
 
     # explicit rendezvous env wins
     monkeypatch.setenv("DPQ_COORDINATOR", "10.0.0.1:1234")
@@ -318,7 +329,7 @@ def test_scaling_bench_emits_table(tmp_path, capsys, monkeypatch):
     import json
     import sys
 
-    from duckdb_parquet_parser_tpu import scaling_bench
+    from duckdb_parquet_parser import scaling_bench
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -348,10 +359,10 @@ def test_elastic_scan_failure_recovery(mesh, batch_and_path):
     """A device 'dies' mid-scan (its shard results dropped by the fault
     hook); orphaned pages re-run on the survivors; the merged result is
     bit-identical to a clean run (scan tasks are stateless)."""
-    from duckdb_parquet_parser_tpu.parallel.elastic import (
+    from duckdb_parquet_parser.parallel.elastic import (
         elastic_distributed_scan,
     )
-    from duckdb_parquet_parser_tpu.parallel.partition import pad_pages as _pp
+    from duckdb_parquet_parser.parallel.partition import pad_pages as _pp
 
     reader, batch = batch_and_path
     dfa = compile_pattern("a[bc]+d|q")
@@ -381,10 +392,10 @@ def test_elastic_scan_failure_recovery(mesh, batch_and_path):
 def test_elastic_scan_cascade(mesh, batch_and_path):
     """Two successive failures (cascade): both orphan sets re-run, result
     still bit-identical; FleetState keeps re-partitioning over survivors."""
-    from duckdb_parquet_parser_tpu.parallel.elastic import (
+    from duckdb_parquet_parser.parallel.elastic import (
         elastic_distributed_scan,
     )
-    from duckdb_parquet_parser_tpu.parallel.partition import pad_pages as _pp
+    from duckdb_parquet_parser.parallel.partition import pad_pages as _pp
 
     reader, batch = batch_and_path
     dfa = compile_pattern("[ab]x?")
@@ -403,7 +414,7 @@ def test_elastic_scan_cascade(mesh, batch_and_path):
 def test_elastic_via_scan_engine(mesh, tmp_path):
     """ScanEngine.scan(fault_hook=...) routes through elastic recovery and
     reports it."""
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     rng = np.random.default_rng(11)
     path = fixtures.strings_file(tmp_path / "el.parquet", rng, n=900,
@@ -425,9 +436,9 @@ def test_index_build_partial_resume(tmp_path):
     """Per-block (row-group) emission checkpoints: a build killed after k
     blocks resumes computing only the missing ones, and the final index is
     identical to an uninterrupted build."""
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
-    from duckdb_parquet_parser_tpu.ops import index as I
-    from duckdb_parquet_parser_tpu.utils import checkpoints as C
+    from duckdb_parquet_parser.models.scan import ScanEngine
+    from duckdb_parquet_parser.ops import index as I
+    from duckdb_parquet_parser.utils import checkpoints as C
 
     rng = np.random.default_rng(21)
     path = fixtures.strings_file(tmp_path / "ck.parquet", rng, n=400,
@@ -450,7 +461,7 @@ def test_index_build_partial_resume(tmp_path):
 
     I.emissions_for_rg = spy
     try:
-        import duckdb_parquet_parser_tpu.models.scan as MS
+        import duckdb_parquet_parser.models.scan as MS
         resumed = eng.build_index("s", chunk_size=800,
                                   checkpoint_dir=str(ck)).index
     finally:
@@ -465,7 +476,7 @@ def test_index_build_partial_resume(tmp_path):
 def test_elastic_index_build(mesh, batch_and_path):
     """A device fails during the index build's sharded decode; the orphaned
     block re-decodes on survivors and the final index is bit-identical."""
-    from duckdb_parquet_parser_tpu.parallel.index_build import (
+    from duckdb_parquet_parser.parallel.index_build import (
         distributed_index_build,
     )
 
@@ -493,11 +504,11 @@ def test_distributed_decode_multi_rg_dict(mesh, tmp_path):
     """Sharded decode with per-page LOCAL dictionary tables: a multi-row-
     group dict column (distinct chunk dictionaries, nonzero page_dict_base
     offsets) must decode bit-identically to the numpy golden."""
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
-    from duckdb_parquet_parser_tpu.ops import decode as D
-    from duckdb_parquet_parser_tpu.parallel.partition import pad_pages
-    from duckdb_parquet_parser_tpu.parallel.pipeline import distributed_decode
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.ops import decode as D
+    from duckdb_parquet_parser.parallel.partition import pad_pages
+    from duckdb_parquet_parser.parallel.pipeline import distributed_decode
 
     rng = np.random.default_rng(17)
     path = str(tmp_path / "mrg.parquet")
@@ -518,3 +529,18 @@ def test_distributed_decode_multi_rg_dict(mesh, tmp_path):
     assert np.array_equal(nonnull[:n_pages], golden_nn)
     for pj, pn in zip(planes, golden_planes):
         assert np.array_equal(pj[:n_pages], pn)
+
+
+def test_ragged_use_hlo_selection(monkeypatch):
+    """The ragged-all-to-all HLO is selected on the GPU only;
+    DPQ_RAGGED_EMULATE=1 forces the emulation there too."""
+    from duckdb_parquet_parser.parallel import pipeline as PL
+
+    monkeypatch.delenv("DPQ_RAGGED_EMULATE", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert PL.ragged_use_hlo() is True
+    monkeypatch.setenv("DPQ_RAGGED_EMULATE", "1")
+    assert PL.ragged_use_hlo() is False
+    monkeypatch.delenv("DPQ_RAGGED_EMULATE")
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert PL.ragged_use_hlo() is False

@@ -6,8 +6,8 @@ import sys
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.models.scan import ScanEngine, build_example_batch
-from duckdb_parquet_parser_tpu.ops.scan import scan_batch
+from duckdb_parquet_parser.models.scan import ScanEngine, build_example_batch
+from duckdb_parquet_parser.ops.scan import scan_batch
 from tests import fixtures
 
 
@@ -65,7 +65,7 @@ def test_example_batch_builder(tmp_path):
 
 def _run_cli(*args):
     return subprocess.run(
-        [sys.executable, "-m", "duckdb_parquet_parser_tpu.cli", *args],
+        [sys.executable, "-m", "duckdb_parquet_parser.cli", *args],
         capture_output=True, text=True, timeout=300,
     )
 

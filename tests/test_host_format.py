@@ -5,10 +5,10 @@ import struct
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host import bindings
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.host.schema import ParquetType
-from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+from duckdb_parquet_parser.host import bindings
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.host.schema import ParquetType
+from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 from tests import fixtures
 
 
@@ -139,8 +139,8 @@ def test_writer_rejects_nulls_on_required_column(tmp_path):
     import numpy as np
     import pytest
 
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     path = str(tmp_path / "req.parquet")
     w = ParquetWriter(path, [ColumnSpec("s", ParquetType.BYTE_ARRAY),

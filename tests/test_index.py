@@ -4,8 +4,8 @@ tests of the boundary recurrence (flush-before-append overshoot semantics)."""
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.ops.index import (
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.ops.index import (
     build_index,
     build_index_for_column,
     chunk_boundaries,
@@ -59,7 +59,7 @@ def test_index_oracle_parity(tmp_path, oracle, rng):
 
 
 def test_materialize_chunk_roundtrip(tmp_path, rng):
-    from duckdb_parquet_parser_tpu.host.reader import _string_stream
+    from duckdb_parquet_parser.host.reader import _string_stream
 
     path = fixtures.strings_file(tmp_path / "m.parquet", rng, n=500, null_p=0.1)
     r = ParquetReader(path)
@@ -129,8 +129,8 @@ def test_fused_build_zero_fills_on_short_index_section(tmp_path):
     count: trailing ranks decode as index 0 (the reference RleDecoder
     zero-fills on exhaustion — quirk pinned in test_decode) and must EMIT,
     not drop.  All three engines must agree on the corrupted file."""
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
     import struct
 
     path = str(tmp_path / "short_idx.parquet")

@@ -13,9 +13,9 @@ import re
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.models.scan import ScanEngine
-from duckdb_parquet_parser_tpu.ops.scan import match_rows, scan_batch
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.models.scan import ScanEngine
+from duckdb_parquet_parser.ops.scan import match_rows, scan_batch
 
 from .fixtures import strings_file
 
@@ -78,8 +78,8 @@ def test_match_rows_like_mode(rows_file):
 
 
 def test_matching_rows_rejects_non_strings(tmp_path):
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     p = tmp_path / "ints.parquet"
     w = ParquetWriter(str(p), [ColumnSpec("i", ParquetType.INT64)],

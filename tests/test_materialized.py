@@ -6,9 +6,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host import bindings
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.ops import decode as D
+from duckdb_parquet_parser.host import bindings
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.ops import decode as D
 
 from .fixtures import mixed_file, strings_file
 
@@ -48,7 +48,7 @@ def test_full_decode_matches(path):
     for col in ["i64_opt", "city", "code"]:
         a = r.read_column(col)
         # runs-only batch through the same materialization helpers
-        from duckdb_parquet_parser_tpu.host.reader import (
+        from duckdb_parquet_parser.host.reader import (
             _materialize_fixed,
             _materialize_strings,
         )

@@ -2,8 +2,8 @@
 
 Spawns two REAL processes that form a jax.distributed group over CPU
 (4 virtual devices each -> 8 global), then run the launch entrypoint's
-distributed scan and index build unmodified — the same code path a Cloud
-TPU pod launch takes, minus the backend.  Asserts the distributed totals
+distributed scan and index build unmodified — the same code path a
+multi-host launch takes, minus the backend.  Asserts the distributed totals
 match a single-process golden run.
 """
 
@@ -32,7 +32,7 @@ def _free_port() -> int:
 
 
 def _launch_two(args: list[str], port: int, timeout=240):
-    """Runs `python -m duckdb_parquet_parser_tpu.launch <args>` as two
+    """Runs `python -m duckdb_parquet_parser.launch <args>` as two
     coordinated processes; returns process 0's stdout."""
     procs = []
     for pid in range(2):
@@ -49,7 +49,7 @@ def _launch_two(args: list[str], port: int, timeout=240):
         # keep the subprocesses off any inherited test-session device flags
         env.pop("DPQ_SCALING_PLATFORM", None)
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "duckdb_parquet_parser_tpu.launch"] + args,
+            [sys.executable, "-m", "duckdb_parquet_parser.launch"] + args,
             env=env, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True,
         ))
@@ -77,7 +77,7 @@ def fixture_file(tmp_path_factory):
 
 
 def test_two_process_scan_matches_single(fixture_file):
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     golden = ScanEngine(fixture_file).scan("s", "alpha", engine="numpy")
     out = _launch_two(["scan", fixture_file, "s", "alpha"], _free_port())
@@ -88,8 +88,8 @@ def test_two_process_scan_matches_single(fixture_file):
 
 
 def test_two_process_index_build(fixture_file):
-    from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-    from duckdb_parquet_parser_tpu.ops.index import build_index_for_column
+    from duckdb_parquet_parser.host.reader import ParquetReader
+    from duckdb_parquet_parser.ops.index import build_index_for_column
 
     golden = build_index_for_column(ParquetReader(fixture_file), "s",
                                     chunk_size=512)

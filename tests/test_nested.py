@@ -15,7 +15,7 @@ import pytest
 pa = pytest.importorskip("pyarrow")
 import pyarrow.parquet as pq  # noqa: E402
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader  # noqa: E402
+from duckdb_parquet_parser.host.reader import ParquetReader  # noqa: E402
 
 
 def _flat_leaf_oracle(lists, max_def):
@@ -271,7 +271,7 @@ def test_scan_nested_string_leaf(tmp_path):
     leaf count matching non-null leaf values — oracle: iterator + re."""
     import re
 
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     rng = np.random.default_rng(13)
     lists = [None if rng.random() < 0.1 else

@@ -20,7 +20,7 @@ import random
 
 import pytest
 
-from duckdb_parquet_parser_tpu.host import bindings
+from duckdb_parquet_parser.host import bindings
 
 
 def zz(v: int) -> bytes:

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
+from duckdb_parquet_parser.host.reader import ParquetReader
 
 pa = pytest.importorskip("pyarrow")
 
@@ -190,8 +190,8 @@ def test_own_writer_page_index_roundtrip(tmp_path):
     # our writer emits ColumnIndex/OffsetIndex too (engine extension); its
     # OffsetIndex must agree with our header-walking page indexer and its
     # bounds must prune soundly — incl. dict-encoded pages and all-null pages
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     rng = np.random.default_rng(7)
     n = 12000

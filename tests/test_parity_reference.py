@@ -9,7 +9,7 @@ the reference's decoded values and surviving-page sets exactly").
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
+from duckdb_parquet_parser.host.reader import ParquetReader
 from tests import fixtures
 
 
@@ -96,8 +96,8 @@ def test_all_null_column(tmp_path, oracle):
     # bytes) all its subsequent reads return zeros and read_column dies on
     # bad_optional_access.  This engine uses stateless pread and reads such
     # files fine (see test_tiny_file_robustness).
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     path = str(tmp_path / "allnull.parquet")
     w = ParquetWriter(
@@ -120,8 +120,8 @@ def test_all_null_column(tmp_path, oracle):
 def test_tiny_file_robustness(tmp_path):
     # Tiny all-null single-column file: the reference crashes on this
     # (failbit poisoning, see note above); the engine must decode it.
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     path = str(tmp_path / "tiny.parquet")
     w = ParquetWriter(path, [ColumnSpec("x", ParquetType.DOUBLE, optional=True)])
@@ -133,8 +133,8 @@ def test_tiny_file_robustness(tmp_path):
 
 
 def test_no_nulls_required(tmp_path, oracle):
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     path = str(tmp_path / "req.parquet")
     w = ParquetWriter(path, [ColumnSpec("x", ParquetType.INT32)])
@@ -151,8 +151,8 @@ def test_no_nulls_required(tmp_path, oracle):
 def test_fuzz_roundtrip_parity(tmp_path, oracle, seed):
     """Randomized schema/data sweeps: every column of every generated file
     must decode identically in the engine and the reference binary."""
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     rng = np.random.default_rng(seed)
     types = [
@@ -207,8 +207,8 @@ def test_fuzz_roundtrip_parity(tmp_path, oracle, seed):
 def test_int96_parity(tmp_path, oracle, rng):
     """INT96 (spark-style timestamps): 12-byte values decode and format
     identically to the reference (reference: src/reader/column_reader.cpp:257-263)."""
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     path = str(tmp_path / "i96.parquet")
     n = 400
@@ -249,7 +249,7 @@ def test_int96_parity(tmp_path, oracle, rng):
 def test_cli_column_matches_oracle(mixed_path, oracle, capsys):
     """`python -m ...cli column <file> <col>` prints exactly the reference
     dump binary's `column` mode output (Value::to_string lines)."""
-    from duckdb_parquet_parser_tpu.cli import main
+    from duckdb_parquet_parser.cli import main
 
     r = ParquetReader(mixed_path)
     for col in [c["name"] for c in r._meta["columns"]]:

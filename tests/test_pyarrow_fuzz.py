@@ -16,8 +16,8 @@ import pytest
 pa = pytest.importorskip("pyarrow")
 import pyarrow.parquet as pq  # noqa: E402
 
-from duckdb_parquet_parser_tpu.host.bindings import lib  # noqa: E402
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader  # noqa: E402
+from duckdb_parquet_parser.host.bindings import lib  # noqa: E402
+from duckdb_parquet_parser.host.reader import ParquetReader  # noqa: E402
 
 # codecs our build supports (runtime-gated: brotli/lz4 .so may be absent)
 _CODEC_IDS = {"NONE": 0, "SNAPPY": 1, "GZIP": 2, "LZ4": 5, "ZSTD": 6}
@@ -145,8 +145,8 @@ def test_pyarrow_cross_product(tmp_path, seed):
     # random layout axes allow: delta pages written by pyarrow, any codec)
     int_cols = [nm for nm, k in zip(names, kinds) if k in ("int32", "int64")]
     if int_cols and seed % 2 == 0:
-        from duckdb_parquet_parser_tpu.host.bindings import NativeError
-        from duckdb_parquet_parser_tpu.ops.delta import read_delta_column
+        from duckdb_parquet_parser.host.bindings import NativeError
+        from duckdb_parquet_parser.ops.delta import read_delta_column
 
         dpath = tmp_path / f"fuzz_{seed}_delta.parquet"
         pq.write_table(
@@ -185,8 +185,8 @@ def test_pyarrow_cross_product(tmp_path, seed):
     # pyarrow-written page layouts: V2 levels, dict pages, tiny pages)
     import re
 
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
-    from duckdb_parquet_parser_tpu.ops.scan import match_rows
+    from duckdb_parquet_parser.models.scan import ScanEngine
+    from duckdb_parquet_parser.ops.scan import match_rows
 
     bin_cols = [nm for nm, k in zip(names, kinds) if k == "binary"]
     if bin_cols:
@@ -290,9 +290,9 @@ def test_random_nested_trees(tmp_path, seed):
 def test_pyarrow_bigpage_end_to_end(tmp_path, seed):
     import re
 
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
-    from duckdb_parquet_parser_tpu.ops.index import build_index_for_column
-    from duckdb_parquet_parser_tpu.ops.scan import SPLIT_TRIGGER
+    from duckdb_parquet_parser.models.scan import ScanEngine
+    from duckdb_parquet_parser.ops.index import build_index_for_column
+    from duckdb_parquet_parser.ops.scan import SPLIT_TRIGGER
 
     rng = np.random.default_rng(9100 + seed)
     n = 40_000
@@ -372,11 +372,11 @@ def test_bigpage_distributed_index_build(tmp_path):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from duckdb_parquet_parser_tpu.ops.index import build_index_for_column
-    from duckdb_parquet_parser_tpu.parallel.index_build import (
+    from duckdb_parquet_parser.ops.index import build_index_for_column
+    from duckdb_parquet_parser.parallel.index_build import (
         distributed_index_build,
     )
-    from duckdb_parquet_parser_tpu.parallel.mesh import make_mesh
+    from duckdb_parquet_parser.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(9200)
     n = 12_000

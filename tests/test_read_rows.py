@@ -13,9 +13,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.host.schema import ParquetType
-from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.host.schema import ParquetType
+from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
 pa = pytest.importorskip("pyarrow")
 

@@ -8,7 +8,7 @@ import pytest
 pa = pytest.importorskip("pyarrow")
 import pyarrow.parquet as pq  # noqa: E402
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader  # noqa: E402
+from duckdb_parquet_parser.host.reader import ParquetReader  # noqa: E402
 
 
 @pytest.fixture(scope="module")

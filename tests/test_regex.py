@@ -5,12 +5,12 @@ import re
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.ops.regex import (
+from duckdb_parquet_parser.ops.regex import (
     UnsupportedPattern,
     compile_pattern,
     like_to_regex,
 )
-from duckdb_parquet_parser_tpu.ops.scan import dfa_match
+from duckdb_parquet_parser.ops.scan import dfa_match
 
 CASES = [
     ("abc", ["abc", "xxabcyy", "ab", "ABC", ""]),

@@ -21,17 +21,17 @@ pytestmark = pytest.mark.skipif(
 
 _CHILD = r"""
 import numpy as np
-from duckdb_parquet_parser_tpu.host.build import build_library
-from duckdb_parquet_parser_tpu.host import bindings
+from duckdb_parquet_parser.host.build import build_library
+from duckdb_parquet_parser.host import bindings
 # route every native call through the sanitized build
 so = build_library(sanitize=True)
 bindings.build_library = lambda *a, **k: so
 bindings._lib = None
 
-from duckdb_parquet_parser_tpu.host.schema import ParquetType
-from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.models.scan import cold_scan
+from duckdb_parquet_parser.host.schema import ParquetType
+from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.models.scan import cold_scan
 
 rng = np.random.default_rng(1)
 path = "/tmp/dpq_asan_fixture.parquet"
@@ -72,7 +72,7 @@ try:
     raise SystemExit("malformed snappy accepted")
 except bindings.NativeError:
     pass
-from duckdb_parquet_parser_tpu.host.schema import CompressionCodec
+from duckdb_parquet_parser.host.schema import CompressionCodec
 cu = r.read_column("s")
 for codec in ("snappy", "gzip", "zstd", "lz4", "lz4_raw", "brotli"):
     cid = int(CompressionCodec[codec.upper()])
@@ -116,7 +116,7 @@ if pa is not None:
 
 # Round-3 native surfaces: PS_INDEX emission + dpq_index_plan sweep (parity
 # vs the numpy model under ASAN) and the lean PS_COL_ONLY column read
-from duckdb_parquet_parser_tpu.ops.index import build_index_for_column
+from duckdb_parquet_parser.ops.index import build_index_for_column
 ia = build_index_for_column(r, "s", 700, engine="numpy")
 ib = build_index_for_column(r, "s", 700, engine="native")
 assert np.array_equal(ia.tuple_to_chunk, ib.tuple_to_chunk)
@@ -137,7 +137,7 @@ if pa is not None:
                    column_encoding={"x": "DELTA_BINARY_PACKED"},
                    data_page_version="2.0", data_page_size=700)
     rdq = ParquetReader("/tmp/dpq_asan_delta.parquet")
-    from duckdb_parquet_parser_tpu.ops.delta import read_delta_column
+    from duckdb_parquet_parser.ops.delta import read_delta_column
     dc = read_delta_column(rdq, "x", engine="numpy")
     hc = rdq.read_column("x")
     assert np.array_equal(np.asarray(dc.valid), np.asarray(hc.valid))
@@ -151,7 +151,7 @@ print("ASAN_LANE_OK")
 
 
 def test_native_surface_asan_clean(tmp_path):
-    from duckdb_parquet_parser_tpu.host.build import build_library
+    from duckdb_parquet_parser.host.build import build_library
 
     build_library(sanitize=True)  # compile outside the child for clear errors
     asan = subprocess.run(
@@ -177,7 +177,7 @@ def test_native_surface_asan_clean(tmp_path):
 
 _CORRUPT_CHILD = r"""
 import os
-from duckdb_parquet_parser_tpu.host import build, bindings
+from duckdb_parquet_parser.host import build, bindings
 so = os.environ["DPQ_FORCE_LIB"]
 build.build_library = lambda *a, **k: so
 bindings.build_library = lambda *a, **k: so
@@ -191,7 +191,7 @@ def test_corruption_fuzz_asan_clean(tmp_path):
     """The corruption fuzz (tests/test_corruption.py) re-run against the
     sanitized build: malformed inputs must raise cleanly with no heap
     errors / UB along the rejection paths."""
-    from duckdb_parquet_parser_tpu.host.build import build_library
+    from duckdb_parquet_parser.host.build import build_library
 
     so = build_library(sanitize=True)
     asan = subprocess.run(

@@ -7,8 +7,8 @@ import re
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.ops.scan import scan_batch, scan_batch_fallback
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.ops.scan import scan_batch, scan_batch_fallback
 from tests import fixtures
 
 
@@ -34,8 +34,8 @@ def strings_path(request, tmp_path_factory):
     if request.param == "dict":
         return fixtures.strings_file(d / "d.parquet", rng, n=2500, n_unique=11, null_p=0.15)
     # one dict rg + one plain rg in the same column
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     path = d / "m.parquet"
     w = ParquetWriter(
@@ -86,10 +86,10 @@ def test_scan_counts_values(strings_path):
 
 def test_resident_scan_many_parity(tmp_path):
     """scan_many == per-pattern scan() for fused (bitprog/chain) patterns,
-    solo MXU-DFA fallbacks, and both polarities."""
+    solo table-DFA fallbacks, and both polarities."""
     import numpy as np
 
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     from .fixtures import strings_file
 
@@ -111,9 +111,9 @@ def test_dict_accept_localization_multi_rg(tmp_path):
     """Device scan over a multi-row-group dict STRING column (distinct
     chunk dictionaries -> two-stage local accept mapping) must match the
     numpy golden for plain and negated patterns."""
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     rng = np.random.default_rng(23)
     path = str(tmp_path / "mrg_scan.parquet")
@@ -133,3 +133,73 @@ def test_dict_accept_localization_multi_rg(tmp_path):
         np.testing.assert_array_equal(a.match_counts, g.match_counts,
                                       err_msg=pat)
         np.testing.assert_array_equal(a.value_counts, g.value_counts)
+
+
+def test_dict_4096_scan_parity(tmp_path):
+    """A 4,096-entry string dictionary maps its accept bits through the
+    gather route; the device scan equals the numpy golden model."""
+    from duckdb_parquet_parser.models.scan import ScanEngine
+
+    rng = np.random.default_rng(96)
+    path = fixtures.strings_file(tmp_path / "d4096.parquet", rng,
+                                 n=7 * 4096, n_unique=4096, rgs=1)
+    eng = ScanEngine(path)
+    assert int(eng.reader.prescan("s", pad_strings=8).dims["dict_n"]) > 512
+    for pat in ("alpha_.*_1[0-9]$", "kilo|mike"):
+        a = eng.scan("s", pat, engine="jax")
+        b = eng.scan("s", pat, engine="numpy")
+        np.testing.assert_array_equal(a.match_counts, b.match_counts)
+        np.testing.assert_array_equal(a.value_counts, b.value_counts)
+        r = eng.resident("s").scan(pat)
+        np.testing.assert_array_equal(r.match_counts, b.match_counts)
+
+
+@pytest.mark.parametrize("pattern", ["q.{33,}z$", "a.{40}b"])
+def test_no_dfa_pattern_keeps_re_semantics(tmp_path, pattern):
+    """A pattern whose table DFA blows up is answered with the host `re`
+    fallback on every page, PLAIN and dictionary alike, so values holding
+    a newline (where `re`'s `.` and `$` differ from the register machine's)
+    get the numpy golden's answer; resident serving refuses the pattern."""
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.models.scan import ScanEngine
+    from duckdb_parquet_parser.ops.bitprog import compile_bitprog
+    from duckdb_parquet_parser.ops.regex import (
+        UnsupportedPattern,
+        compile_pattern,
+    )
+
+    with pytest.raises(UnsupportedPattern):
+        compile_pattern(pattern)
+    compile_bitprog(pattern)  # a register machine exists all the same
+
+    tricky = [b"q" + b"3" * 40 + b"z\n", b"q" + b"3" * 40 + b"z",
+              b"a" + b"x" * 20 + b"\n" + b"x" * 19 + b"b",
+              b"a" + b"x" * 40 + b"b", b"plain value"]
+    rng = np.random.default_rng(5)
+    path = str(tmp_path / "nl.parquet")
+    w = ParquetWriter(path, [ColumnSpec("s", ParquetType.BYTE_ARRAY,
+                                        optional=True)],
+                      key_value={"pad": "x" * 512})
+    # one dictionary row group (few distinct values), one PLAIN row group
+    w.write_row_group({"s": [tricky[i] for i in rng.integers(0, 5, 600)]})
+    w.write_row_group({"s": [b"%d " % i + tricky[i % 5]
+                             for i in range(600)]})
+    w.close()
+
+    eng = ScanEngine(path)
+    kinds = set(eng.reader.prescan("s", pad_strings=8)
+                .arrays["page_kind"].tolist())
+    assert kinds == {0, 1}, kinds
+    rx = re.compile(pattern.encode())
+    for neg in (False, True):
+        a = eng.scan("s", pattern, engine="jax", negate=neg)
+        g = eng.scan("s", pattern, engine="numpy", negate=neg)
+        np.testing.assert_array_equal(a.match_counts, g.match_counts)
+        np.testing.assert_array_equal(a.value_counts, g.value_counts)
+        want = sum((rx.search(v) is not None) ^ neg
+                   for v in eng.reader.read_column("s").to_pylist()
+                   if v is not None)
+        assert int(a.match_counts.sum()) == want
+    with pytest.raises(UnsupportedPattern):
+        eng.resident("s").scan(pattern)

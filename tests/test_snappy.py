@@ -15,15 +15,15 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host import bindings
-from duckdb_parquet_parser_tpu.host.bindings import (
+from duckdb_parquet_parser.host import bindings
+from duckdb_parquet_parser.host.bindings import (
     NativeError,
     snappy_compress,
     snappy_decompress,
 )
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.host.schema import ParquetType
-from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.host.schema import ParquetType
+from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
 pa = pytest.importorskip("pyarrow")
 
@@ -138,7 +138,7 @@ def test_twin_file_is_smaller_and_flagged(twins):
 
 
 def test_twin_scan_and_iterator_identical(twins):
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     for pattern in ["san.*o", "^new", "[a-f]{4}", "spec|chicago"]:
         a = ScanEngine(twins["uncompressed"]).scan("s", pattern)
@@ -153,8 +153,8 @@ def test_twin_scan_and_iterator_identical(twins):
 
 
 def test_twin_cold_scan_and_index_identical(twins):
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
-    from duckdb_parquet_parser_tpu.ops.index import build_index_for_column
+    from duckdb_parquet_parser.models.scan import ScanEngine
+    from duckdb_parquet_parser.ops.index import build_index_for_column
 
     a = ScanEngine(twins["uncompressed"]).cold_scan("s", "san.*o",
                                                     exact_counts=True)
@@ -232,7 +232,7 @@ def test_reference_rejects_snappy(twins):
 def test_engine_rejects_unbuilt_codecs():
     # Every pyarrow-writable codec is now supported (tests/test_codecs.py);
     # LZO has no system library anywhere, so it pins the rejection path.
-    from duckdb_parquet_parser_tpu.host.schema import CompressionCodec
+    from duckdb_parquet_parser.host.schema import CompressionCodec
 
     assert not bindings.codec_supported(int(CompressionCodec.LZO))
     with pytest.raises(NativeError, match="unsupported codec LZO"):

@@ -14,8 +14,8 @@ import re
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host import bindings as B
-from duckdb_parquet_parser_tpu.ops.scan import split_payload_pages
+from duckdb_parquet_parser.host import bindings as B
+from duckdb_parquet_parser.ops.scan import split_payload_pages
 
 
 def _payload_matrix(pages):
@@ -92,8 +92,8 @@ def test_split_plan_truncation_and_blowup():
                                      "carefully|quickly"])
 def test_split_walk_parity(pattern):
     """Split-walk counts == unsplit walk == re, numpy path."""
-    from duckdb_parquet_parser_tpu.ops.bitprog import compile_bitprog
-    from duckdb_parquet_parser_tpu.ops.strings import match_payload_stream
+    from duckdb_parquet_parser.ops.bitprog import compile_bitprog
+    from duckdb_parquet_parser.ops.strings import match_payload_stream
 
     rng = np.random.default_rng(3)
     words = [b"carefully", b"quickly", b"special", b"requests", b"deposits"]
@@ -124,7 +124,7 @@ def test_engine_scan_big_pages(tmp_path):
     pa = pytest.importorskip("pyarrow")
     import pyarrow.parquet as pq
 
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     rng = np.random.default_rng(9)
     words = [b"carefully", b"quickly", b"special", b"requests", b"deposits"]
@@ -140,7 +140,7 @@ def test_engine_scan_big_pages(tmp_path):
                and re.search(b"special.*requests", v))
     assert int(np.asarray(res_dev.match_counts).sum()) == want
     # exercised the split path, not a degenerate single-segment layout
-    from duckdb_parquet_parser_tpu.host.reader import ParquetReader
+    from duckdb_parquet_parser.host.reader import ParquetReader
 
     batch = ParquetReader(f).prescan("s", flags=B.PS_PAYLOAD)
     sp = split_payload_pages(batch.arrays)
@@ -164,7 +164,7 @@ def test_batched_and_streaming_reroute_big_pages(tmp_path):
     pa = pytest.importorskip("pyarrow")
     import pyarrow.parquet as pq
 
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     rng = np.random.default_rng(4)
     words = [b"carefully", b"quickly", b"special", b"requests"]

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
+from duckdb_parquet_parser.host.reader import ParquetReader
 
 pa = pytest.importorskip("pyarrow")
 
@@ -80,8 +80,8 @@ def test_own_writer_stats_roundtrip_and_pyarrow(tmp_path):
     # reader and pyarrow see the same typed values
     import pyarrow.parquet as pq
 
-    from duckdb_parquet_parser_tpu.host.schema import ParquetType
-    from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
+    from duckdb_parquet_parser.host.schema import ParquetType
+    from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
 
     rng = np.random.default_rng(3)
     n = 500

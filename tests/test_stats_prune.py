@@ -13,11 +13,11 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.host.schema import ParquetType
-from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
-from duckdb_parquet_parser_tpu.models.scan import ScanEngine
-from duckdb_parquet_parser_tpu.ops.regex import anchored_literal_prefix
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.host.schema import ParquetType
+from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
+from duckdb_parquet_parser.models.scan import ScanEngine
+from duckdb_parquet_parser.ops.regex import anchored_literal_prefix
 
 
 def test_anchored_literal_prefix():
@@ -193,7 +193,7 @@ def test_prune_random_prefix_fuzz(tmp_path):
 
 
 def test_exact_literal():
-    from duckdb_parquet_parser_tpu.ops.regex import exact_literal
+    from duckdb_parquet_parser.ops.regex import exact_literal
 
     cases = [
         ("^user_0000042 tail$", b"user_0000042 tail"),
@@ -266,7 +266,7 @@ def test_exact_literal_soundness_matrix(tmp_path, pattern, kind):
 
 
 def test_anchored_prune_range():
-    from duckdb_parquet_parser_tpu.ops.regex import anchored_prune_range
+    from duckdb_parquet_parser.ops.regex import anchored_prune_range
 
     cases = [
         ("^abc", (b"abc", b"abd")),                    # plain prefix

@@ -8,12 +8,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from duckdb_parquet_parser_tpu.host import bindings
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
-from duckdb_parquet_parser_tpu.host.schema import ParquetType
-from duckdb_parquet_parser_tpu.host.writer import ColumnSpec, ParquetWriter
-from duckdb_parquet_parser_tpu.ops.regex import compile_pattern
-from duckdb_parquet_parser_tpu.ops.strings import (
+from duckdb_parquet_parser.host import bindings
+from duckdb_parquet_parser.host.reader import ParquetReader
+from duckdb_parquet_parser.host.schema import ParquetType
+from duckdb_parquet_parser.host.writer import ColumnSpec, ParquetWriter
+from duckdb_parquet_parser.ops.regex import compile_pattern
+from duckdb_parquet_parser.ops.strings import (
     match_payload_stream,
     match_values_by_offset,
     string_offsets,
@@ -141,7 +141,7 @@ def test_empty_and_zero_length_values(tmp_path):
 def test_bitap_chain_matches_dfa(tmp_path_factory, pattern, xp):
     """The Shift-And fast path must match the general DFA bit-exactly,
     including self-overlapping needles and ordered multi-needle chains."""
-    from duckdb_parquet_parser_tpu.ops.regex import substring_chain
+    from duckdb_parquet_parser.ops.regex import substring_chain
 
     d = tmp_path_factory.mktemp("bitap")
     vals = [
@@ -177,11 +177,11 @@ def test_bitap_chain_matches_dfa(tmp_path_factory, pattern, xp):
 def test_transposed_stream_parity(plain_file, xp, pattern):
     """transposed=True (the pre-transposed resident serving layout) must be
     bit-identical to the [N, P] entry point on every transition kind."""
-    from duckdb_parquet_parser_tpu.ops.bitprog import (
+    from duckdb_parquet_parser.ops.bitprog import (
         BitprogUnsupported,
         compile_bitprog,
     )
-    from duckdb_parquet_parser_tpu.ops.regex import substring_chain
+    from duckdb_parquet_parser.ops.regex import substring_chain
 
     r = ParquetReader(plain_file)
     _, dev = _both(r)
@@ -206,7 +206,7 @@ def test_transposed_stream_parity(plain_file, xp, pattern):
 
 
 def test_substring_chain_detection():
-    from duckdb_parquet_parser_tpu.ops.regex import substring_chain
+    from duckdb_parquet_parser.ops.regex import substring_chain
 
     assert substring_chain("special.*requests") == [b"special", b"requests"]
     assert substring_chain("^.*foo.*$") == [b"foo"]          # LIKE '%foo%'

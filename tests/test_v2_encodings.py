@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from duckdb_parquet_parser_tpu.host.reader import ParquetReader
+from duckdb_parquet_parser.host.reader import ParquetReader
 
 pa = pytest.importorskip("pyarrow")
 
@@ -105,7 +105,7 @@ def test_byte_stream_split(tmp_path):
 def test_delta_strings_scan_and_cold_fallback(tmp_path):
     import re
 
-    from duckdb_parquet_parser_tpu.models.scan import ScanEngine
+    from duckdb_parquet_parser.models.scan import ScanEngine
 
     rng = np.random.default_rng(8)
     n = 3000
@@ -135,7 +135,7 @@ def test_delta_device_decode(tmp_path, dtype, patype, compression, engine):
     kernel (ops/delta.py) against the host decoder / pyarrow values —
     mixed miniblock widths, nulls, full-range magnitudes, constant runs
     (bw 0) and both page versions of the arithmetic (wrap carries)."""
-    from duckdb_parquet_parser_tpu.ops.delta import read_delta_column
+    from duckdb_parquet_parser.ops.delta import read_delta_column
 
     rng = np.random.default_rng(11)
     n = 9000
@@ -164,7 +164,7 @@ def test_delta_device_decode(tmp_path, dtype, patype, compression, engine):
 
 def test_delta_device_required_column(tmp_path):
     """REQUIRED (no nulls) delta column through the identity decode path."""
-    from duckdb_parquet_parser_tpu.ops.delta import read_delta_column
+    from duckdb_parquet_parser.ops.delta import read_delta_column
 
     vals = list(range(0, 40000, 3))
     table = pa.table({"x": pa.array(vals, type=pa.int64())})
@@ -178,8 +178,8 @@ def test_delta_device_required_column(tmp_path):
 def test_delta_raw_rejects_plain(tmp_path):
     """PS_DELTA_RAW on a PLAIN file raises (mixed/absent delta pages) and
     read_delta_column surfaces it."""
-    from duckdb_parquet_parser_tpu.host.bindings import NativeError
-    from duckdb_parquet_parser_tpu.ops.delta import read_delta_column
+    from duckdb_parquet_parser.host.bindings import NativeError
+    from duckdb_parquet_parser.ops.delta import read_delta_column
 
     table = pa.table({"x": pa.array(list(range(100)), type=pa.int64())})
     path = _write(tmp_path, "plain.parquet", table, {"x": "PLAIN"})
